@@ -1,18 +1,16 @@
-"""gym_kmanip_tpu: TPU-native manipulation suite for the K-Scale Stompy robots.
+"""gym_kmanip_tpu: JAX manipulation suite for the K-Scale Stompy robots.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
-gym-kmanip suite (Gymnasium + MuJoCo, see SURVEY.md): three robot
-morphologies, eight registered environments, cube-pick task with shaped
-reward, damped least-squares IK, camera rendering, HDF5 + viz episode
-logging -- plus the TPU-first additions (batched dynamics, sampling/iLQR
-MPC, multi-chip rollout sharding).
+A JAX/XLA framework with the capabilities of the reference gym-kmanip
+suite (Gymnasium + MuJoCo, see SURVEY.md): three robot morphologies, eight
+registered environments, cube-pick task with shaped reward, damped
+least-squares IK, camera rendering, HDF5 + viz episode logging -- plus
+batched dynamics, sampling/iLQR MPC and multi-device rollout sharding.
 
-Importing this package registers the same 8 env ids as the reference
-(/root/reference/gym_kmanip/__init__.py:244-483):
+When gymnasium is installed, importing this package registers the same 8
+env ids as the reference (/root/reference/gym_kmanip/__init__.py:244-483):
 KManipSoloArm[QPos|Vision], KManipDualArm[QPos|Vision], KManipTorso[Vision].
+The dynamics, MPC and solver modules need only JAX and numpy.
 """
-
-from gymnasium.envs.registration import register
 
 from gym_kmanip_tpu import constants
 from gym_kmanip_tpu.constants import *  # noqa: F401,F403 -- k.* constant surface
@@ -20,7 +18,12 @@ from gym_kmanip_tpu.env.config import CONFIGS
 
 __version__ = "0.1.0"
 
-for _cfg in CONFIGS.values():
+try:
+    from gymnasium.envs.registration import register
+except ImportError:  # the Gym shell is optional; the engine is not
+    register = None
+
+for _cfg in CONFIGS.values() if register is not None else ():
     register(
         id=_cfg.env_id,
         entry_point="gym_kmanip_tpu.env.env_base:KManipEnv",

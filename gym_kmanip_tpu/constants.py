@@ -5,7 +5,7 @@ Mirrors the configuration surface of the reference suite
 the reference relies on exists here under the same name with the same default.
 
 The values are physical / behavioral facts of the K-Scale "Stompy" robots and
-the cube-pick task; the code around them is a fresh TPU-native design.
+the cube-pick task; the code around them is a fresh JAX design.
 """
 
 from collections import OrderedDict as ODict

@@ -1,6 +1,6 @@
 """Batched articulated dynamics in pure JAX (MJX-style).
 
-TPU-native replacement for the reference's native MuJoCo step pipeline
+JAX replacement for the reference's native MuJoCo step pipeline
 (`mj_step` reached through dm_control at
 /root/reference/gym_kmanip/env_sim.py:196-210: 10 substeps of 2 ms per 20 ms
 control step).

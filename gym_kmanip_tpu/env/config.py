@@ -30,8 +30,8 @@ class EnvConfig:
     max_episode_steps: int = k.MAX_EPISODE_STEPS
     # EE-delta IK solver precision. True (default, all KManip* envs): f64
     # host TRF via pure_callback — scipy's ftol/xtol are sub-f32-epsilon, so
-    # exact reference parity REQUIRES f64, which TPUs lack natively; one
-    # 6-dof solve per arm per 20 ms control step is host work, exactly as
+    # exact reference parity REQUIRES f64; one 6-dof solve per arm per
+    # 20 ms control step is host work, exactly as
     # the reference's scipy call is (solvers/ik_host.py). False: the f32
     # on-device jittable TRF (no host round-trips — what vec_env/batched
     # pipelines use; parity within ~1e-4 except at f32 branch flips).

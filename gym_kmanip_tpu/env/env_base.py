@@ -15,7 +15,7 @@ accepted design decision, not the template for any other layer:
   recorded datasets and log trees from the two frameworks are
   byte-layout interchangeable (the h5py/rerun writers key off them).
 * Everything stateful or performance-relevant lives BELOW this shell in
-  the TPU-native core (env/task.py: one jitted decode->IK->physics->obs->
+  the JAX core (env/task.py: one jitted decode->IK->physics->obs->
   reward program; env/vec_env.py: the batched path that skips this shell
   entirely). This file is a thin host-side adapter; no new layer should
   copy its structure.

@@ -1,8 +1,8 @@
 """Viewer example: live interactive browser viewer, or offline frames.
 
-TPU-native analog of the reference viewer example
+JAX analog of the reference viewer example
 (/root/reference/gym_kmanip/examples/0_viewer.py), which launches the
-dm_control GUI. Headless TPU hosts have no GUI, so:
+dm_control GUI. Headless accelerator hosts have no GUI, so:
 
   * `python 0_viewer.py --live` serves a LIVE interactive viewer over
     HTTP (gym_kmanip_tpu/viewer.py): frames from the on-device raycaster

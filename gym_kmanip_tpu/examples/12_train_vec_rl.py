@@ -1,7 +1,7 @@
 """On-device RL: PPO over a batch of vectorized KManip envs.
 
 No reference analog (its 6_train_from_dataset.py is offline BC from
-recorded episodes); this is the TPU-native on-policy path the vectorized
+recorded episodes); this is the on-device on-policy path the vectorized
 env exists for: N envs stepped as ONE jitted program (KManipVecEnv, fused
 Pallas physics under vmap), a flax policy/value net, and jitted PPO
 updates — the host only shuttles (N, ...) batches between the two jitted

@@ -8,7 +8,7 @@ from the thumb-middle pinch distance, thumb-pinky reset with a 1 s
 backoff), and the session loop steps the env and upserts the scene (URDF
 robot with live joint values, cube, table plane, hand spheres) at ~60 fps.
 
-vuer is an optional dependency (not shipped in TPU images); this module
+vuer is an optional dependency (not shipped in training images); this module
 stays importable without it (the pure gesture logic lives in
 gym_kmanip_tpu.teleop and is tested in tests/test_teleop.py; THIS wiring —
 handlers, lock discipline, session loop, scene upserts — is exercised by

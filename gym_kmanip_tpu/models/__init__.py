@@ -3,7 +3,7 @@
 The three Stompy morphologies are shipped as self-contained mesh-free MJCF
 files (gym_kmanip_tpu/assets/{solo_arm,dual_arm,torso}.xml, regenerated by
 tools/gen_assets.py) and built through the models/mjcf.py loader, the same
-path users take to import their OWN robots — the TPU-native analog of the
+path users take to import their OWN robots — the JAX analog of the
 reference's `mujoco.Physics.from_xml_path` compile
 (/root/reference/gym_kmanip/env_sim.py:208) and its assets/templates
 import workflow. Registry keys match the MJCF filenames the reference uses

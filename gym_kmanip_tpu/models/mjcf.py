@@ -1,6 +1,6 @@
 """MJCF-subset loader: robot XML -> static RobotModel pytree.
 
-TPU-native replacement for the reference's runtime MJCF compile
+JAX replacement for the reference's runtime MJCF compile
 (`mujoco.Physics.from_xml_path` at /root/reference/gym_kmanip/env_sim.py:208
 and the asset-template robot-import workflow, SURVEY.md §2.2/§2.3): instead
 of compiling XML into an opaque C struct, the kinematic tree is parsed

@@ -1,6 +1,6 @@
 """Static robot model specification.
 
-TPU-native replacement for the reference's MJCF-compile step
+JAX replacement for the reference's MJCF-compile step
 (/root/reference/gym_kmanip/env_sim.py:208: mujoco.Physics.from_xml_path).
 Instead of compiling XML into an opaque C struct at runtime, a robot is a
 plain frozen dataclass of numpy arrays -- a *static pytree* that jitted

@@ -1,10 +1,10 @@
 """Batched horizon rollouts: the compute core of sampling MPC.
 
 Replaces nothing in the reference (it has no MPC; SURVEY.md §2.4) -- this is
-the TPU-first extension the BASELINE north star requires: thousands of
-horizon-H rollouts of the full articulated dynamics as ONE compiled
-program, `vmap` over the rollout batch (which `shard_map` then splits over
-chips), `lax.scan` over the horizon.
+the extension the BASELINE north star requires: thousands of horizon-H
+rollouts of the full articulated dynamics as ONE compiled program, `vmap`
+over the rollout batch (which `shard_map` then splits over devices),
+`lax.scan` over the horizon.
 
 For speed, MPC rollouts integrate at the control rate by default
 (n_substeps=1 at dt=0.02) rather than the env's 10x2 ms; the env remains
@@ -24,8 +24,10 @@ from gym_kmanip_tpu.dynamics.engine import substep, _tip_state
 from gym_kmanip_tpu.dynamics.state import SimState, StepAux
 from gym_kmanip_tpu.models.spec import RobotModel
 from gym_kmanip_tpu.ops import kinematics as kin
+from gym_kmanip_tpu.utils.precision import highest_precision
 
 
+@highest_precision
 def mpc_step(
     model: RobotModel,
     state: SimState,
@@ -80,6 +82,7 @@ def mpc_step(
     return state, aux
 
 
+@highest_precision
 def rollout(
     model: RobotModel,
     state0: SimState,
@@ -104,6 +107,7 @@ def rollout(
     return jnp.sum(costs), state_f
 
 
+@highest_precision
 def rollout_with_traj(
     model: RobotModel,
     state0: SimState,

@@ -5,7 +5,7 @@ obs feeding learned-cost MPC rollouts"): every rollout state is rendered
 on-device by the raycaster (gym_kmanip_tpu.render) and scored by a small
 flax CNN -- renderer and network both live inside the vmapped rollout, so
 thousands of render+infer passes compile into one program (the renders
-batch into (K, h, w, 3) tensors and the conv hits the MXU).
+batch into (K, h, w, 3) tensors for one batched conv).
 
 The CNN can be trained (e.g. regress the true cube-gripper distance from
 pixels, `fit_distance_cost`) or loaded; with no training it still exercises

@@ -3,7 +3,7 @@
 // The reference's per-step hot loop is its scipy least_squares TRF IK solve
 // (/root/reference/gym_kmanip/ik_mujoco.py:129-135, "IK took Xms" prints at
 // ik_mujoco.py:153-154) — tens of residual/Jacobian evaluations through
-// native MuJoCo C per control step. This file is the TPU framework's native
+// native MuJoCo C per control step. This file is this framework's native
 // counterpart for the host side of the split env pipeline (env/task.py
 // make_task, cfg.ik_host64): the same f64 forward kinematics, the
 // reference's analytic-Jacobian structure (quirks included), and the same

@@ -1,6 +1,6 @@
 """Batched forward kinematics and Jacobians in pure JAX.
 
-TPU-native replacement for the reference's MuJoCo C calls
+JAX replacement for the reference's MuJoCo C calls
 (mj_kinematics / mj_comPos / mj_jacSite at
 /root/reference/gym_kmanip/ik_mujoco.py:35,68-80).
 
@@ -142,9 +142,9 @@ def mass_matrix(model: RobotModel, qpos: jax.Array) -> jax.Array:
     """Joint-space inertia matrix M(q) via COM-Jacobian contraction.
 
     M = sum_i m_i Jv_i^T Jv_i + Jw_i^T (R_i I_i R_i^T) Jw_i + armature.
-    Dense einsum formulation: O(n^2) matmuls that batch onto the MXU, chosen
-    over recursive CRBA because rollout batches (K x H) turn these tiny
-    contractions into large batched GEMMs.
+    Dense einsum formulation: O(n^2) contractions, chosen over recursive
+    CRBA because rollout batches (K x H) turn these tiny contractions into
+    batched GEMMs.
     """
     xpos, xquat, axis_w = fk(model, qpos)
     _, jv, jw = body_jacobians(model, xpos, xquat, axis_w)
@@ -185,40 +185,6 @@ def bias_forces_ad(model: RobotModel, qpos: jax.Array, qvel: jax.Array) -> jax.A
 def bias_forces(model: RobotModel, qpos: jax.Array, qvel: jax.Array) -> jax.Array:
     """qfrc_bias = C(q,v)v + g(q); see `rnea_terms`."""
     return rnea_terms(model, qpos, qvel)[3]
-
-
-_RNEA_CV_CACHE = {}
-
-
-def rnea_terms_fast(model: RobotModel, qpos: jax.Array, qvel: jax.Array):
-    """`rnea_terms` with a custom_vmap seam (same pattern as
-    ops/linalg.batch_aware_cholesky_solve): per-item calls run the jnp
-    unroll; under vmap on TPU the whole batch dispatches to the fused
-    Pallas kernel (ops/pallas_dynamics), collapsing ~700 launch-bound
-    elementwise kernels per substep into one."""
-    key = id(model)
-    if key not in _RNEA_CV_CACHE:
-
-        @jax.custom_batching.custom_vmap
-        def f(q, v):
-            return rnea_terms(model, q, v)
-
-        @f.def_vmap
-        def _rule(axis_size, in_batched, q, v):
-            qb, vb = in_batched
-            if not qb:
-                q = jnp.broadcast_to(q, (axis_size,) + q.shape)
-            if not vb:
-                v = jnp.broadcast_to(v, (axis_size,) + v.shape)
-            if jax.default_backend() == "tpu" and q.ndim == 2:
-                from gym_kmanip_tpu.ops.pallas_dynamics import rnea_terms_batched
-
-                return rnea_terms_batched(model, q, v), (True, True, True, True)
-            out = jax.vmap(lambda a, b: rnea_terms(model, a, b))(q, v)
-            return out, (True, True, True, True)
-
-        _RNEA_CV_CACHE[key] = f
-    return _RNEA_CV_CACHE[key](qpos, qvel)
 
 
 def rnea_terms(

@@ -7,48 +7,11 @@ factorization and the two triangular solves are unrolled at trace time
 (n is static), so under vmap every operation is a fused elementwise op over
 the (K, ...) batch -- the "batch-fuse tiny matrices" discipline from
 SURVEY.md §7 hard part 3. For nq<=20 this is ~n^3/3 scalar FLOPs per item,
-all VPU-friendly.
+all elementwise.
 """
-
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-
-
-def make_batch_aware_solve(use_pallas: bool = True):
-    """SPD solve that upgrades itself under vmap.
-
-    Unbatched calls run the trace-time-unrolled Cholesky below; when the
-    MPC rollout batch is vmapped over the engine, the custom_vmap rule
-    routes the now-explicit (K, n, n) problem to the fused Pallas TPU
-    kernel (ops/pallas_linalg) -- vmap-of-pallas_call does not lower
-    practically, so this is the clean seam between the per-item engine
-    code and the batched kernel.
-    """
-
-    @jax.custom_batching.custom_vmap
-    def solve(M, b):
-        return cholesky_solve_unrolled(M, b)
-
-    @solve.def_vmap
-    def _batched(axis_size, in_batched, M, b):
-        M_b, b_b = in_batched
-        if not M_b:
-            M = jnp.broadcast_to(M, (axis_size,) + M.shape)
-        if not b_b:
-            b = jnp.broadcast_to(b, (axis_size,) + b.shape)
-        if use_pallas and jax.default_backend() == "tpu" and M.ndim == 3:
-            from gym_kmanip_tpu.ops.pallas_linalg import cholesky_solve_pallas
-
-            return cholesky_solve_pallas(M, b), True
-        return cholesky_solve_unrolled(M, b), True
-
-    return solve
-
-
-# default instance used by the dynamics engine
-batch_aware_cholesky_solve = make_batch_aware_solve()
 
 
 def cholesky_factor_unrolled(M: jax.Array):

@@ -1,6 +1,6 @@
 """On-device camera rendering: a batched raycaster in pure JAX.
 
-TPU-native replacement for the reference's native OpenGL offscreen renders
+JAX replacement for the reference's native OpenGL offscreen renders
 (`physics.render(h, w, camera_id)` at /root/reference/gym_kmanip/env_sim.py:
 140-145). The reference scene's visual meshes are .gitignored STLs
 (SURVEY.md §2.2), so geometric fidelity there is moot; what matters for the

@@ -1,6 +1,6 @@
 """Batched damped least-squares IK in pure JAX.
 
-TPU-native replacement for the reference's scipy-TRF IK
+JAX replacement for the reference's scipy-TRF IK
 (/root/reference/gym_kmanip/ik_mujoco.py:100-155). The residual is the same
 stack the reference builds (ik_mujoco.py:20-53):
 
@@ -40,6 +40,7 @@ from gym_kmanip_tpu import constants as k
 from gym_kmanip_tpu.models.spec import RobotModel
 from gym_kmanip_tpu.ops import kinematics as kin
 from gym_kmanip_tpu.utils import rotations as rot
+from gym_kmanip_tpu.utils.precision import highest_precision
 
 
 class IKResult(NamedTuple):
@@ -114,6 +115,7 @@ def reference_jacobian(
     return jnp.vstack([jacp[:, mask], jac_quat[:, mask], jac_reg, jac_reg])
 
 
+@highest_precision
 def ik_trf(
     model: RobotModel,
     qpos_full: jax.Array,
@@ -189,6 +191,7 @@ def ik_trf(
     return jnp.clip(q, lo, hi), scribble
 
 
+@highest_precision
 def ik(
     model: RobotModel,
     qpos_full: jax.Array,

@@ -6,10 +6,10 @@ epsilon — an f32 device solver cannot reproduce its termination decisions,
 and on the torso's weakly-regularized 6-dof arms the resulting branch flips
 scatter solutions by ~1e-2 rad along near-flat directions (measured:
 scipy's f64 solver driven by our f32 residuals matches the reference to
-<= 7e-5 everywhere the f32 device solver diverges). TPUs have no native
-f64, and flipping JAX's global x64 flag would poison every f32 kernel in
-the process — so the single-env Gym shell (a 50 Hz control loop, not a TPU
-workload; the reference itself does this exact solve on host) routes IK
+<= 7e-5 everywhere the f32 device solver diverges). Flipping JAX's global
+x64 flag would poison every f32 kernel in the process — so the single-env
+Gym shell (a 50 Hz control loop, not an accelerator workload; the
+reference itself does this exact solve on host) routes IK
 through `jax.pure_callback` to this numpy f64 implementation:
 
   * numpy f64 forward kinematics / site pose / site Jacobian over the same

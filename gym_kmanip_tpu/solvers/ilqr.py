@@ -1,30 +1,26 @@
 """iLQR trajectory optimization over the full manipulation state.
 
-TPU-first gradient-based counterpart to MPPI (no reference analog; the
-BASELINE north star asks for "batched damped-LS IK -> SQP/iLQR" on these
+Gradient-based counterpart to MPPI (no reference analog; the BASELINE
+north star asks for "batched damped-LS IK -> SQP/iLQR" on these
 dynamics). The default configuration compiles the ENTIRE solve into one
 device dispatch:
 
   * dynamics linearization: branch-consistent one-sided differences
     (fd_order=1; centered available) — all H x (n + m) probe evaluations
-    as ONE batched call through the fused Pallas substep kernel
-    (`vmap(jacfwd(f))` through the lapack-path graph remains as the exact
-    oracle, fd_linearize=False)
+    as ONE vmapped call of the substep (`vmap(jacfwd(f))` through the
+    lapack-path graph remains as the exact oracle, fd_linearize=False)
   * cost quadratization: vmapped grad/hessian of the running cost, or a
     user-supplied analytic/Gauss-Newton model (quad_xu — see
     mpc.cost.make_ee_tracking_cost_ilqr; the autodiff Hessian of an
     FK-bearing cost was ~30% of the torso solve wall)
-  * backward pass: the whole Riccati recursion as ONE Pallas kernel
-    (ops/pallas_riccati: VMEM-resident sweep, in-kernel Cholesky,
-    Gershgorin-adaptive Levenberg regularization); `lax.scan` off-TPU, or
-    the O(log H) associative-scan path (parallel_backward)
+  * backward pass: the Riccati recursion as a `lax.scan`, or the
+    O(log H) associative-scan path (parallel_backward)
   * forward pass: line search over a fixed alpha schedule, all candidates
-    stepped through the fused kernel under `vmap`, best improvement
+    stepped together under `vmap`, best improvement
     selected with `argmin` -- XLA-friendly control flow, no host
     round-trips
   * fused_solve scans the iteration loop on-device: one dispatch per MPC
-    solve (~10x wall-clock at torso H=100 vs the per-piece host loop,
-    which pays a device round-trip per stage)
+    solve, where the per-piece host loop pays a dispatch per stage
 
 State layout x = [qpos, qvel, cube_pos, cube_quat, cube_linvel,
 cube_angvel] (2*nq + 13). The quaternion is treated ambiently; at MPC step
@@ -45,6 +41,12 @@ from gym_kmanip_tpu import constants as k
 from gym_kmanip_tpu.dynamics.state import SimState
 from gym_kmanip_tpu.models.spec import RobotModel
 from gym_kmanip_tpu.mpc.rollout import mpc_step
+from gym_kmanip_tpu.utils.precision import highest_precision
+
+
+def jit_highest(fn):
+    """`jax.jit` of `fn` traced at the program's matmul precision."""
+    return jax.jit(highest_precision(fn))
 
 
 class ILQRConfig(NamedTuple):
@@ -60,16 +62,14 @@ class ILQRConfig(NamedTuple):
     # reach/track regime iLQR is built for)
     contact: bool = True
     # True: O(log H)-depth associative-scan Riccati (solvers/parallel_lqr),
-    # the long-horizon sequence-parallel path; False: serial sweep (the
-    # fused single-launch Pallas kernel on TPU, lax.scan elsewhere /
-    # pallas_backward=False)
+    # the long-horizon sequence-parallel path; False: the serial lax.scan
+    # sweep
     parallel_backward: bool = False
-    pallas_backward: bool = True
-    # Linearization through the FUSED substep kernel: all H x (2n+2m)
-    # central-difference evaluations as ONE batched Pallas call, instead of
-    # vmap(jacfwd) through the lapack-path graph. ~20x faster on TPU; the
-    # jacfwd path (fd_linearize=False) remains the exact oracle
-    # (tests/test_mpc.py gradient-path parity).
+    # Linearization by finite differences: all H x (n+m) probe evaluations
+    # as ONE vmapped call of the unrolled-solve substep, instead of
+    # vmap(jacfwd) through the lapack-path graph. The jacfwd path
+    # (fd_linearize=False) remains the exact oracle (tests/test_mpc.py
+    # gradient-path parity).
     fd_linearize: bool = True
     fd_eps: float = 1e-3
     # 1: one-sided differences (H x (n+m) probes — half the batch, error
@@ -80,21 +80,14 @@ class ILQRConfig(NamedTuple):
     # trace-band assertions), so the cheaper scheme is the default; the
     # jacfwd oracle path (fd_linearize=False) remains exact.
     fd_order: int = 1
-    # Forward passes (initial rollout + line search) through the fused
-    # batched kernel as well
+    # Forward passes (initial rollout + line search) through the
+    # unrolled-solve substep as well
     fast_rollouts: bool = True
     # Jit the whole solve (rollout + scan over iterations) into ONE device
     # dispatch. Requires the fast paths above (the jacfwd oracle graph
     # explodes compile times when scanned); turned off automatically when
     # fd_linearize is off.
     fused_solve: bool = True
-    # Forward passes (nominal rollout + line search) through the
-    # whole-horizon feedback megakernel (ops/pallas_substep.rollout_feedback)
-    # instead of the scanned per-step kernel. None = auto: on for small
-    # robots (nq <= 12, where per-step launch overhead dominates), off for
-    # the torso (in-kernel row compute dominates and the scan path measured
-    # ~10% faster there). Requires reduced_state + f32 + TPU either way.
-    fb_kernel: Optional[bool] = None
     # Drop the cube's 13 dims from the solver state: x = [qpos, qvel]
     # (n = 2*nq instead of 2*nq + 13). Only meaningful with contact=False,
     # where the cube is PHYSICALLY decoupled from the robot (no tip-cube
@@ -102,8 +95,7 @@ class ILQRConfig(NamedTuple):
     # cube is treated as a fixed target at its state0 value inside cost
     # functions (unflatten_state fills it from the template). Shrinks the
     # Riccati sweep's n^3 matmuls 2.3x and the FD probe count 18% on the
-    # torso (measured: 23.5 -> ~16 ms per fused H=100 10-iter solve).
-    # Controls returned are identical to the full-state solve up to f32
+    # torso. Controls returned are identical to the full-state solve up to f32
     # rounding (tests/test_mpc.py::test_ilqr_reduced_state_matches_full).
     reduced_state: bool = False
 
@@ -146,6 +138,38 @@ class ILQRResult(NamedTuple):
     cost_trace: jax.Array  # (n_iters,) cost after each iteration
 
 
+@highest_precision
+def riccati_sweep(A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, reg, lam_extra):
+    """Serial regularized Riccati backward sweep as one `lax.scan`.
+
+    Per step t (reverse): Q-function blocks from the value (Vx, Vxx) at
+    t+1, Quu lifted by reg*I plus lam_extra*max|Quu|*I, gains
+    [k | K] = -Quu^-1 [Qu | Qux]. Returns (ks (H, m), Ks (H, m, n))."""
+    eye_u = jnp.eye(cu.shape[-1], dtype=cu.dtype)
+
+    def step(carry, inp):
+        Vx, Vxx = carry
+        A_t, B_t, cx_t, cu_t, cxx_t, cuu_t, cux_t = inp
+        Qx = cx_t + A_t.T @ Vx
+        Qu = cu_t + B_t.T @ Vx
+        Qxx = cxx_t + A_t.T @ Vxx @ A_t
+        Quu = cuu_t + B_t.T @ Vxx @ B_t + reg * eye_u
+        Qux = cux_t + B_t.T @ Vxx @ A_t
+        Quu = 0.5 * (Quu + Quu.T)
+        Quu = Quu + (lam_extra * jnp.max(jnp.abs(Quu))) * eye_u
+        Kk = -jnp.linalg.solve(Quu, jnp.concatenate([Qu[:, None], Qux], axis=1))
+        kff, K = Kk[:, 0], Kk[:, 1:]
+        Vx_n = Qx + K.T @ Quu @ kff + K.T @ Qu + Qux.T @ kff
+        Vxx_n = Qxx + K.T @ Quu @ K + K.T @ Qux + Qux.T @ K
+        Vxx_n = 0.5 * (Vxx_n + Vxx_n.T)
+        return (Vx_n, Vxx_n), (kff, K)
+
+    (_, _), (ks, Ks) = jax.lax.scan(
+        step, (Vx_T, Vxx_T), (A, B, cx, cu, cxx, cuu, cux), reverse=True
+    )
+    return ks, Ks
+
+
 def _build_pieces(model, cfg, state0, cost_xu, cost_final, dtype,
                   quad_xu=None, quad_final=None):
     """Separately-jitted iLQR building blocks.
@@ -179,8 +203,8 @@ def _build_pieces(model, cfg, state0, cost_xu, cost_final, dtype,
         return flatten_state(s2, reduced=cfg.reduced_state)
 
     def f_fast(x, u):
-        # fast path: dispatches to the fused Pallas substep kernel whenever
-        # the caller is vmapped (engine custom_vmap seam)
+        # fast path: the unrolled Cholesky, which fuses across the vmapped
+        # probe and line-search batches
         s = unflatten_state(model, x, template)
         s2, _ = mpc_step(
             model, s, u, cfg.n_substeps, cfg.dt, contact=cfg.contact,
@@ -193,55 +217,21 @@ def _build_pieces(model, cfg, state0, cost_xu, cost_final, dtype,
     def total_cost(xs, us):
         return jax.vmap(cost_xu)(xs[:-1], us).sum() + cost_final(xs[-1])
 
-    # Whole-horizon feedback-rollout megakernel for the line search and
-    # nominal rollout (ops/pallas_substep.rollout_feedback): at batch 1-6
-    # the scanned per-substep kernel is launch/scan-bound (~7-10 us/step
-    # of overhead), ~1.5 ms per iteration at torso H=100. Reduced layout
-    # only (the kernel pins the cube), f32, TPU.
-    fb_wanted = cfg.fb_kernel if cfg.fb_kernel is not None else model.nq <= 12
-    use_fb_kernel = (
-        fb_wanted
-        and cfg.fast_rollouts
-        and cfg.reduced_state
-        and str(dtype) == "float32"
-        and jax.default_backend() == "tpu"
-    )
-
-    def _cube0():
-        return jnp.concatenate(
-            [template.cube_pos, template.cube_quat,
-             template.cube_linvel, template.cube_angvel]
-        ).astype(dtype)
-
-    @jax.jit
+    @jit_highest
     def rollout0(x0, us):
-        if use_fb_kernel:
-            from gym_kmanip_tpu.ops.pallas_substep import rollout_feedback
-
-            H_ = us.shape[0]
-            xs_t, us_c = rollout_feedback(
-                model, x0, _cube0(), jnp.zeros((H_, n), dtype), us,
-                jnp.zeros_like(us), jnp.zeros((H_, nu, n), dtype),
-                jnp.ones((1,), dtype), n_substeps=cfg.n_substeps, dt=cfg.dt,
-            )
-            xs = jnp.concatenate([x0[None], xs_t[0]], axis=0)
-            return xs, total_cost(xs, us_c[0])
-
         def body(x, u):
-            # batch-of-1 vmap so the fused kernel serves the nominal rollout
-            # too (the unbatched jnp path is ~40x slower per step on TPU)
-            x2 = jax.vmap(f_fwd)(x[None], u[None])[0]
+            x2 = f_fwd(x, u)
             return x2, x2
 
         _, xs_tail = jax.lax.scan(body, x0, us)
         xs = jnp.concatenate([x0[None], xs_tail], axis=0)
         return xs, total_cost(xs, us)
 
-    @jax.jit
+    @jit_highest
     def derivs(xs, us):
         if cfg.fd_linearize:
-            # All H x (2n + 2m) finite-difference evaluations of the
-            # dynamics as ONE batched call through the fused kernel.
+            # All H x (n + m) finite-difference evaluations of the
+            # dynamics as ONE batched call.
             # Branch-consistent steps: the limit/ctrl constraint forces are
             # piecewise (several home poses park joints exactly AT or
             # OUTSIDE their range), and a centered difference straddling
@@ -363,7 +353,7 @@ def _build_pieces(model, cfg, state0, cost_xu, cost_final, dtype,
             Vxx_T = jax.hessian(cost_final)(xs[-1])
         return A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T
 
-    @jax.jit
+    @jit_highest
     def backward(A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, lam_extra):
         """Regularized backward sweep. `lam_extra` is the ADAPTIVE
         Levenberg multiplier threaded by the iteration loop (0 until a
@@ -394,60 +384,18 @@ def _build_pieces(model, cfg, state0, cost_xu, cost_final, dtype,
             Ks, ks = backward_associative(prob)
             return ks, Ks
 
-        if cfg.pallas_backward and jax.default_backend() == "tpu":
-            from gym_kmanip_tpu.ops.pallas_riccati import riccati_sweep_pallas
+        return riccati_sweep(A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T,
+                             cfg.reg, lam_extra)
 
-            return riccati_sweep_pallas(
-                A, B, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, cfg.reg,
-                lam_extra=lam_extra,
-            )
-
-        def step(carry, inp):
-            Vx, Vxx = carry
-            A_t, B_t, cx_t, cu_t, cxx_t, cuu_t, cux_t = inp
-            Qx = cx_t + A_t.T @ Vx
-            Qu = cu_t + B_t.T @ Vx
-            Qxx = cxx_t + A_t.T @ Vxx @ A_t
-            Quu = cuu_t + B_t.T @ Vxx @ B_t + cfg.reg * eye_u
-            Qux = cux_t + B_t.T @ Vxx @ A_t
-            Quu = 0.5 * (Quu + Quu.T)
-            Quu = Quu + (lam_extra * jnp.max(jnp.abs(Quu))) * eye_u
-            Kk = -jnp.linalg.solve(Quu, jnp.concatenate([Qu[:, None], Qux], axis=1))
-            kff, K = Kk[:, 0], Kk[:, 1:]
-            Vx_n = Qx + K.T @ Quu @ kff + K.T @ Qu + Qux.T @ kff
-            Vxx_n = Qxx + K.T @ Quu @ K + K.T @ Qux + Qux.T @ K
-            Vxx_n = 0.5 * (Vxx_n + Vxx_n.T)
-            return (Vx_n, Vxx_n), (kff, K)
-
-        (_, _), (ks, Ks) = jax.lax.scan(
-            step, (Vx_T, Vxx_T), (A, B, cx, cu, cxx, cuu, cux), reverse=True
-        )
-        return ks, Ks
-
-    @jax.jit
+    @jit_highest
     def linesearch(x0, xs, us, ks, Ks):
         alphas = jnp.asarray(cfg.alphas, dtype=dtype)
-        if use_fb_kernel:
-            from gym_kmanip_tpu.ops.pallas_substep import rollout_feedback
-
-            xs_t, us_c = rollout_feedback(
-                model, x0, _cube0(), xs[:-1], us, ks, Ks, alphas,
-                n_substeps=cfg.n_substeps, dt=cfg.dt,
-            )
-            nA = len(cfg.alphas)
-            xs_c = jnp.concatenate(
-                [jnp.broadcast_to(x0, (nA, 1, n)), xs_t], axis=1
-            )
-            costs_c = jax.vmap(total_cost)(xs_c, us_c)
-            best = jnp.argmin(costs_c)
-            return xs_c[best], us_c[best], costs_c[best]
 
         def forward(alpha):
             def body(x, inp):
                 x_nom, u_nom, kff, K = inp
                 u = jnp.clip(u_nom + alpha * kff + K @ (x - x_nom), lo, hi)
-                # the outer vmap over alphas batches this call, so the fused
-                # kernel serves all line-search candidates per step
+                # the outer vmap over alphas batches this call
                 x2 = f_fwd(x, u)
                 return x2, (x2, u)
 
@@ -459,13 +407,13 @@ def _build_pieces(model, cfg, state0, cost_xu, cost_final, dtype,
         best = jnp.argmin(costs_c)
         return xs_c[best], us_c[best], costs_c[best]
 
-    @jax.jit
+    @jit_highest
     def iteration(x0, xs, us, cost, lam=0.0):
         """One full iLQR iteration (derivs -> backward -> line search ->
-        monotone accept) as ONE dispatch: with the FD linearization, the
-        Pallas Riccati sweep, and the fused forward passes, the per-piece
-        graphs are small enough to jit together, so the host loop costs a
-        single device round-trip per iteration instead of three.
+        monotone accept) as ONE dispatch: with the FD linearization and the
+        unrolled-solve forward passes, the per-piece graphs are small
+        enough to jit together, so the host loop costs a single dispatch
+        per iteration instead of three.
 
         `lam` is the adaptive Levenberg state: 0 while line searches
         succeed (bitwise-legacy gains); a failed line search bumps it
@@ -484,7 +432,7 @@ def _build_pieces(model, cfg, state0, cost_xu, cost_final, dtype,
         )
         return xs_n, us_n, jnp.minimum(cost_c, cost), lam_n
 
-    @jax.jit
+    @jit_highest
     def solve_fused(x0, us):
         """The ENTIRE solve (initial rollout + n_iters iterations) as ONE
         compiled program — a single device dispatch per MPC solve. Only
@@ -556,11 +504,9 @@ def ilqr_solve(
 
 
 def _clip_u(model, u_init):
-    """Clip the warm start to ctrl_range once at solve entry: the fb
-    megakernel's nominal rollout clips the control law while the scan
-    rollout0 does not — for an out-of-range u_init the two paths saw
-    different nominals and the (xs, cost, us) triple was internally
-    inconsistent (ADVICE r4). In-range warm starts are untouched."""
+    """Clip the warm start to ctrl_range once at solve entry, so that the
+    nominal rollout and the line search's clipped control law start from
+    the same controls. In-range warm starts are untouched."""
     import numpy as np
 
     lo = np.asarray(model.ctrl_range[:, 0], dtype=np.float32)

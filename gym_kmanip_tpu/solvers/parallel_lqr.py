@@ -1,12 +1,11 @@
 """Parallel-in-time LQR: the Riccati backward pass as an associative scan.
 
 This is the framework's horizon/sequence parallelism (SURVEY.md §2.4): a
-serial H-step Riccati recursion has O(H) depth, which leaves the TPU idle
-between tiny matrix ops at long horizons; reformulated with an associative
+serial H-step Riccati recursion has O(H) depth, which leaves the device
+idle between tiny matrix ops at long horizons; reformulated with an associative
 combination operator (Sarkka & Garcia-Fernandez, "Temporal Parallelization
 of Bayesian Smoothers", IEEE TAC 2021 -- the LQT dual), `lax.associative_scan`
-evaluates it in O(log H) depth of batched (H, n, n) matmuls that the MXU
-actually likes.
+evaluates it in O(log H) depth of batched (H, n, n) matmuls.
 
 Problem form (per step t, all arrays stacked over the horizon):
     x_{t+1} = A_t x_t + B_t u_t + d_t
@@ -25,6 +24,8 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+
+from gym_kmanip_tpu.utils.precision import highest_precision
 
 
 class LQRProblem(NamedTuple):
@@ -58,6 +59,7 @@ def _eliminate_cross(p: LQRProblem):
     return At, dt, Ct, Qt, qt, Rinv, Rinv_L, Rinv_r
 
 
+@highest_precision
 def backward_sequential(p: LQRProblem) -> Tuple[jax.Array, jax.Array]:
     """Reference serial Riccati sweep. Returns (K, kff), (H,m,n), (H,m)."""
 
@@ -80,6 +82,7 @@ def backward_sequential(p: LQRProblem) -> Tuple[jax.Array, jax.Array]:
     return K, kff
 
 
+@highest_precision
 def backward_associative(p: LQRProblem) -> Tuple[jax.Array, jax.Array]:
     """O(log H)-depth Riccati via lax.associative_scan. Returns (K, kff)."""
     H, n, _ = p.A.shape

@@ -21,7 +21,7 @@ and termination rules. A numpy prototype of the same control flow
 (status, nfev, and solutions to 2e-16 over a 20-step env-regime sequence,
 including a trust-radius-collapse early exit).
 
-TPU-native design notes: scipy's nested adaptive loops become one flat
+Design notes: scipy's nested adaptive loops become one flat
 ``lax.while_loop`` whose body performs exactly one residual evaluation (one
 trust-region trial). The outer-iteration bookkeeping (scaling vector, SVD,
 gradient-norm termination) is recomputed every trial; on rejected trials the
@@ -36,6 +36,8 @@ from typing import Callable, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+
+from gym_kmanip_tpu.utils.precision import highest_precision
 
 _RUNNING = -1  # internal "no termination yet" status
 
@@ -324,6 +326,7 @@ class _State(NamedTuple):
     x_last: jax.Array
 
 
+@highest_precision
 def least_squares_trf(
     res_fn: Callable[[jax.Array], jax.Array],
     jac_fn: Callable[[jax.Array], jax.Array],

@@ -8,7 +8,7 @@ thumb-middle distance drives the gripper, and a thumb-pinky pinch resets
 the episode and re-anchors the hand. Both hands are mapped for bimanual
 morphologies.
 
-TPU-native split: the reference keeps this logic inline in an async Vuer
+Design split: the reference keeps this logic inline in an async Vuer
 handler over mutable globals; here the gesture mapping is a pure-Python
 `TeleopState` with no vuer/network dependency (unit-testable with recorded
 hand frames, reusable by env_real), and `examples/4_teleop.py` is only the

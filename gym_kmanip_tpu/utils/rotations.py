@@ -1,6 +1,6 @@
 """Pure-JAX quaternion / rotation library (wxyz convention, like MuJoCo).
 
-TPU-native replacement for the reference's mix of scipy.spatial.transform and
+JAX replacement for the reference's mix of scipy.spatial.transform and
 MuJoCo C quaternion utilities (mju_mat2Quat / mju_subQuat / mjd_subQuat used
 at /root/reference/gym_kmanip/ik_mujoco.py:43-86 and scipy Rotation used at
 /root/reference/gym_kmanip/env_sim.py:67-89).

@@ -2,7 +2,7 @@
 
 The reference's examples/0_viewer.py launches the dm_control GUI viewer
 (/root/reference/gym_kmanip/examples/0_viewer.py:48), which needs a local
-display. TPU hosts are headless, so this serves the on-device raycaster's
+display. Accelerator hosts are headless, so this serves the on-device raycaster's
 frames over plain HTTP (stdlib only — no GUI toolkit, no extra deps) to
 any browser, with keyboard teleop driving the env's action space:
 

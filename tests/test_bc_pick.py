@@ -1,10 +1,10 @@
 """Closed data->train->eval loop: MPPI expert records, BC trains, eval
 lifts (VERDICT r2 next #4). Scaled-down twin of
 examples/13_bc_pick.run_pipeline; the full-size rates live in
-tools/bench_suite.py bc_bench (TPU).
+tools/bench_suite.py bc_bench (GPU).
 
 Slow tier: the expert's full-fidelity MPPI rollouts hit XLA:CPU's vmap
-pathology (~47x per item vs TPU), so CI runs this nightly.
+pathology (~50x slower per item than unbatched), so CI runs this nightly.
 """
 
 import importlib

@@ -1,7 +1,7 @@
 """Dynamics engine tests: contact settling, PD holding, RNEA exactness,
 batchability. The reference has no physics tests of its own (its backend is
 the MuJoCo wheel, SURVEY.md §4); these are the golden-behavior equivalents
-for our TPU-native engine."""
+for our JAX engine."""
 
 import jax
 import jax.numpy as jnp

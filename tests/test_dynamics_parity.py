@@ -3,7 +3,7 @@
 Replays the golden position-servo target sequence
 (tests/golden/solo_arm_dynamics.npz, generated by
 tools/make_golden_dynamics.py from the reference MJCF compiled with matched
-inertials/damping) through the TPU engine and checks the BASELINE
+inertials/damping) through the engine and checks the BASELINE
 "control deviation" metric: arm joints within 1e-3 rad of MuJoCo over a
 1 s contact-free tracking rollout.
 """

@@ -99,8 +99,8 @@ def test_vec_ppo_training_runs():
 
     mod = importlib.import_module("gym_kmanip_tpu.examples.12_train_vec_rl")
     # QPos env: direct joint-target actions skip the per-step IK solve,
-    # which dominates CPU wall-time at 64 envs (TPU runs the EE-delta env
-    # fine, see the example)
+    # which dominates CPU wall-time at 64 envs (the example runs the
+    # EE-delta env on the GPU)
     params, mrs = mod.train(
         env_id="KManipSoloArmQPos", vision=False, n_updates=2, n_envs=64,
         t_rollout=4, seed=0, log=lambda *a: None,

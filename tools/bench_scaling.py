@@ -8,7 +8,8 @@ virtual CPU devices), the same formula as tools/bench_suite.scaling_bench:
 Run by bench.py in a subprocess (JAX_PLATFORMS=cpu + 8 virtual devices)
 so the driver-captured artifact records a scaling-efficiency number every
 round (VERDICT r4 #3). This is a PROXY: 8 virtual devices share this
-host's physical cores, so the ceiling is set by the core count, not ICI —
+host's physical cores, so the ceiling is set by the core count, not the
+interconnect —
 the row exists to track regressions in the sharding machinery, while the
 >=80% BASELINE bar belongs to real multi-chip hardware
 (tools/launch_multihost.py).

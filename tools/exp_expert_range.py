@@ -1,4 +1,4 @@
-"""MPPI pick-expert success over the FULL CUBE_SPAWN_RANGE (on TPU).
+"""MPPI pick-expert success over the FULL CUBE_SPAWN_RANGE (on the GPU).
 
 The zoo's BC ceiling is the expert's own competence; before scaling the
 spawn box (VERDICT r4 #4) this measures where the examples/13 expert

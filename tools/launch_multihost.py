@@ -28,7 +28,7 @@ Weak-scaling proxy on the 8-virtual-device CPU mesh (single process):
 
   Re-execs itself under JAX_PLATFORMS=cpu with 8 virtual devices and
   prints the 1->2->4->8 weak-scaling curve of the sharded solver. CPU
-  absolute numbers are meaningless for TPU (XLA:CPU has a vmap pathology
+  absolute numbers say nothing of the GPU (XLA:CPU has a vmap pathology
   on the substep); the CURVE isolates the sharding/collective overhead,
   which is what transfers.
 """
@@ -104,7 +104,8 @@ def run_distributed(args):
 
 
 _CHILD_ENV_NOTE = """Local-spawn child: CPU gloo collectives, 2 virtual
-devices per process — the exact init path a pod run takes, minus ICI."""
+devices per process — the exact init path a multi-host run takes, minus
+the interconnect."""
 
 
 def run_local_spawn(n: int):

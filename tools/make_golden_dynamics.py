@@ -3,7 +3,7 @@
 Extends tools/make_golden.py (kinematics) to full trajectories: the solo-arm
 model tracks a sequence of position-servo targets for 1 s of sim time, and
 we record qpos/qvel at every control step. The test suite then replays the
-same targets through our TPU engine and checks the BASELINE "control
+same targets through our engine and checks the BASELINE "control
 deviation" metric (<1e-3 rad without contact).
 
 To make the comparison well-posed the golden XML is built to match the
