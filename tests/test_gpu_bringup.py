@@ -149,7 +149,21 @@ def test_chip_smoke_ilqr_phase_tiny():
 
     cs = _chip_smoke()
     cs.run_phase(cs.phase_ilqr, model=_tiny_model(), H=8, n_iters=4, reps=1,
-                 ref_H=4, ref_iters=2, goal_offset=(0.05, 0.0, -0.05))
+                 ref_iters=2, goal_offset=(0.05, 0.0, -0.05))
+
+
+def test_chip_smoke_four_mppi_phase_tiny():
+    """The sharded MPPI solve over four of the virtual CPU devices
+    (tests/conftest.py) against its one-device replay."""
+    cs = _chip_smoke()
+    cs.run_phase(cs.phase_four_mppi, local_k=4, H=2)
+
+
+def test_chip_smoke_four_ilqr_phase_tiny():
+    from test_mpc import _tiny_model
+
+    cs = _chip_smoke()
+    cs.run_phase(cs.phase_four_ilqr, model=_tiny_model(), B=8, H=6, n_iters=3)
 
 
 @pytest.fixture
